@@ -1,4 +1,4 @@
-"""Ad-hoc stage profiler for the audit step (TPU or CPU)."""
+"""Ad-hoc stage profiler for the audit step (GPU or CPU)."""
 import sys
 import time
 
@@ -48,9 +48,7 @@ def main():
         "group", lambda: group_candidates_by_window(cand, wid, B, K)
     )
     counts_c = jnp.minimum(counts, K)
-    timeit("consensus(auto)", lambda: consensus_pos_batch(locs, counts_c, ipos32))
-    timeit("consensus(scan)",
-           lambda: consensus_pos_batch(locs, counts_c, ipos32, impl="scan"))
+    timeit("consensus", lambda: consensus_pos_batch(locs, counts_c, ipos32))
 
 
 if __name__ == "__main__":

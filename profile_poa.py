@@ -7,21 +7,19 @@ consensus shapes.  Reports effective DP cells/sec (sum n_i x band
 width_i, what the scalar anchor would compute) and the device-computed
 padded cells/sec, vs the scalar numpy anchor on one pair extrapolated.
 """
-import os
 import sys
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache"),
-)
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 import numpy as np
-import jax
 
-from svtrek_tpu.ops.poa import banded_align, encode
-from svtrek_tpu.ops.poa_batch import _dp_cols_batch, _pow2
+from svtrek_tpu.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+
+import jax  # noqa: E402
+
+from svtrek_tpu.ops.poa import banded_align, encode  # noqa: E402
+from svtrek_tpu.ops.poa_batch import _dp_cols_batch, _pow2  # noqa: E402
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 256
 M = int(sys.argv[2]) if len(sys.argv) > 2 else 1024   # target len

@@ -1,8 +1,8 @@
-"""Command-line interface: `svtrek-tpu {audt,disc}`.
+"""Command-line interface: `svtrek-tpu {audt,scan,disc}`.
 
 Mirrors the reference's CLI surface exactly (svtrek.c:5-19, init.c:3-33):
 same subcommands, same option names (short and long), same defaults; the
-TPU-native extensions are added as clearly-separated extra flags.
+extensions are added as clearly-separated extra flags (marked [ext]).
 Unlike the reference, --output and --verbose actually work (the reference
 parses both and uses neither; SURVEY.md §5).
 """
@@ -32,7 +32,8 @@ def _add_common(p: argparse.ArgumentParser):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="svtrek-tpu",
-        description="TPU-native SV audit (audt) and discovery (disc).",
+        description="Accelerated SV audit (audt), windowed INS scan (scan) "
+                    "and discovery (disc).",
     )
     sub = ap.add_subparsers(dest="mode")
 
@@ -44,59 +45,59 @@ def build_parser() -> argparse.ArgumentParser:
     audt.add_argument("--median-interval", type=int, default=C.MEDIAN_INTERVAL)
     audt.add_argument("--narrow-interval", type=int, default=C.NARROW_INTERVAL)
     audt.add_argument("--batch-windows", type=int, default=512,
-                      help="[TPU] windows per device batch")
+                      help="[ext] windows per device batch")
     audt.add_argument("--max-candidates", type=int, default=1024,
-                      help="[TPU] consensus candidate capacity per window")
+                      help="[ext] consensus candidate capacity per window")
     audt.add_argument("--no-native-io", action="store_true",
-                      help="[TPU] disable the C BAM reader fast path")
+                      help="[ext] disable the C BAM reader fast path")
     audt.add_argument("--chrom-by-name", action="store_true",
-                      help="[TPU] resolve VCF CHROM names against the BAM "
+                      help="[ext] resolve VCF CHROM names against the BAM "
                       "header (chr-prefix tolerant) instead of the "
                       "reference's numeric tid = chrom-1 assumption; "
                       "also prints the CHROM name in result lines")
     audt.add_argument("--extract", choices=("auto", "host", "device"),
                       default="auto",
-                      help="[TPU] evidence-walk placement: host = C walk "
+                      help="[ext] evidence-walk placement: host = C walk "
                       "ships only candidates (default with native IO), "
                       "device = ship packed CIGARs to the accelerator")
     audt.add_argument("--cand-width", type=int, default=128,
-                      help="[TPU] host-extract per-window candidate "
+                      help="[ext] host-extract per-window candidate "
                       "capacity (overflow refines exactly in C)")
     audt.add_argument("--sweep-width", type=int, default=128,
-                      help="[TPU] consensus sweep anchor budget "
+                      help="[ext] consensus sweep anchor budget "
                       "(overflow falls back exactly to the host)")
     audt.add_argument("--refined-vcf", default="",
-                      help="[TPU] write a refined VCF (SVELDT=SUCCESS/"
+                      help="[ext] write a refined VCF (SVELDT=SUCCESS/"
                            "PARTIAL/INCORRECT) to this path")
     audt.add_argument("--data-shards", type=int, default=0,
-                      help="[TPU] mesh shards per device batch "
+                      help="[ext] mesh shards per device batch "
                            "(0 = all local devices)")
     audt.add_argument("--num-shards", type=int, default=1,
-                      help="[TPU] split records across N independent "
+                      help="[ext] split records across N independent "
                            "jobs/hosts (whole-genome scale-out)")
     audt.add_argument("--shard-index", type=int, default=0,
-                      help="[TPU] which record shard this job owns")
+                      help="[ext] which record shard this job owns")
     audt.add_argument("--resume", action="store_true", default=False,
-                      help="[TPU] append to --output, skipping records "
+                      help="[ext] append to --output, skipping records "
                            "whose result lines are already there")
     audt.add_argument("--trace-dir", default="",
-                      help="[TPU] write a jax.profiler trace of the "
+                      help="[ext] write a jax.profiler trace of the "
                            "batch loop to this directory")
     audt.add_argument("--ins-consensus", action="store_true", default=False,
-                      help="[TPU] emit a POA consensus of the inserted "
+                      help="[ext] emit a POA consensus of the inserted "
                            "sequence on refined INS lines (', seq: ...'):"
                            " the audt-mode partial-order-alignment path "
                            "the reference's unused abPOA submodule "
                            "intends; default off = exact output parity")
     audt.add_argument("--poa-engine", choices=("star", "graph"),
                       default="star",
-                      help="[TPU] consensus engine for --ins-consensus: "
+                      help="[ext] consensus engine for --ins-consensus: "
                            "star = iteratively-refined star MSA "
                            "(default; measured quality >= POA on ONT-"
                            "realistic divergence), graph = true "
                            "partial-order alignment")
     audt.add_argument("--refine-inv", action="store_true", default=False,
-                      help="[TPU] real INV refinement: soft-clip + D>50 "
+                      help="[ext] real INV refinement: soft-clip + D>50 "
                            "evidence at both breakpoints through the "
                            "consensus (the reference intends this but its "
                            "refine_point collects nothing, so INV always "
@@ -117,10 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     scan.add_argument("--window-size", type=int, default=1000)
     scan.add_argument("--slide-size", type=int, default=1)
     scan.add_argument("--batch-windows", type=int, default=8192,
-                      help="[TPU] sub-windows per device batch")
+                      help="[ext] sub-windows per device batch")
     scan.add_argument("--no-native-io", action="store_true")
     scan.add_argument("--chrom-by-name", action="store_true",
-                      help="[TPU] resolve -c against the BAM header "
+                      help="[ext] resolve -c against the BAM header "
                       "(chr-prefix tolerant) instead of the reference's "
                       "numeric tid = chrom-1 assumption")
 
@@ -130,21 +131,21 @@ def build_parser() -> argparse.ArgumentParser:
     disc.add_argument("-q", "--fq", required=True)
     _add_common(disc)
     disc.add_argument("--sv-min-length", type=int, default=C.SV_MIN_LENGTH,
-                      help="[TPU] minimum SV length for discovery")
+                      help="[ext] minimum SV length for discovery")
     disc.add_argument("--cluster-window", type=int, default=100,
-                      help="[TPU] max gap (bp) between consecutive sorted "
+                      help="[ext] max gap (bp) between consecutive sorted "
                            "signals chained into one cluster")
     disc.add_argument("--resume", action="store_true", default=False,
-                      help="[TPU] restore the detection phase from "
+                      help="[ext] restore the detection phase from "
                            "<output>.ckpt.npz (written on every run with "
                            "an output file; invalidated when the GFA/GAF "
                            "inputs change)")
     disc.add_argument("--data-shards", type=int, default=0,
-                      help="[TPU] mesh shards per detection batch "
+                      help="[ext] mesh shards per detection batch "
                            "(0 = all local devices)")
     disc.add_argument("--poa-engine", choices=("star", "graph"),
                       default="star",
-                      help="[TPU] INS consensus engine (see audt "
+                      help="[ext] INS consensus engine (see audt "
                            "--poa-engine)")
     return ap
 
@@ -165,6 +166,9 @@ def validate_file(filename: str, message: str):
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.mode == "audt":
         cfg = AudtConfig(
             bam_file=args.bam, vcf_file=args.vcf, output_file=args.output,
@@ -229,6 +233,10 @@ def main(argv=None) -> int:
         from .pipeline.scan import run_scan
 
         run_scan(cfg)
+        if cfg.verbose:
+            from .parallel.mesh import device_label
+
+            print(f"[VERBOSE] {device_label()}", file=sys.stderr)
         return 0
     if args.mode == "disc":
         cfg = DiscConfig(
@@ -250,6 +258,10 @@ def main(argv=None) -> int:
         from .pipeline.discover import run_discover
 
         run_discover(cfg)
+        if cfg.verbose:
+            from .parallel.mesh import device_label
+
+            print(f"[VERBOSE] {device_label()}", file=sys.stderr)
         return 0
     ap.print_help()
     return 1

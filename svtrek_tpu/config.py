@@ -32,7 +32,7 @@ class AudtConfig:
     consensus_interval_range: int = C.CONSENSUS_INTERVAL_RANGE
     consensus_interval: int = C.CONSENSUS_INTERVAL
     consensus_min_count: int = C.CONSENSUS_MIN_COUNT
-    # TPU-native additions (no reference analog):
+    # Extensions (no reference analog):
     batch_windows: int = 512        # windows per device batch
     max_candidates: int = 1024      # consensus candidate cap per window
     max_read_candidates: int = 64   # per-read candidate compaction width
@@ -103,7 +103,7 @@ class ScanConfig:
     consensus_interval_range: int = C.CONSENSUS_INTERVAL_RANGE
     consensus_interval: int = C.CONSENSUS_INTERVAL
     consensus_min_count: int = C.CONSENSUS_MIN_COUNT
-    # TPU-native additions:
+    # Extensions (no reference analog):
     batch_windows: int = 8192       # sub-windows per device batch
     max_candidates: int = 128       # evidence cap per sub-window
                                     # (overflow → exact host fallback)
@@ -127,7 +127,7 @@ class DiscConfig:
     consensus_interval_range: int = C.CONSENSUS_INTERVAL_RANGE
     consensus_interval: int = C.CONSENSUS_INTERVAL
     consensus_min_count: int = C.CONSENSUS_MIN_COUNT
-    # TPU-native additions:
+    # Extensions (no reference analog):
     sv_min_length: int = C.SV_MIN_LENGTH
     cluster_window: int = 100       # max gap (bp) between consecutive
                                     # sorted signals in one cluster

@@ -2,7 +2,7 @@
 
 Mirrors the reference's parameter surface (reference: params.h:10-41) so that
 configuration names/defaults are identical, while the implementation is
-TPU-native (JAX/XLA) rather than a C port.
+batched JAX/XLA device code rather than a C port.
 """
 from __future__ import annotations
 

@@ -20,9 +20,9 @@ def build(force: bool = False) -> str | None:
         "cc", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
         "-o", OUT, SRC, "-lz",
     ]
-    # libdeflate decodes BGZF blocks ~2.7x faster than zlib (measured on
-    # this host); use it when the dev package is present, else fall back
-    # to zlib so the library builds anywhere.
+    # libdeflate decodes BGZF blocks faster than zlib; use it when the
+    # dev package is present, else fall back to zlib so the library
+    # builds anywhere.
     if os.path.exists("/usr/include/libdeflate.h"):
         cmd[cmd.index(SRC):cmd.index(SRC)] = ["-DSVTREK_HAVE_LIBDEFLATE"]
         cmd.append("-ldeflate")

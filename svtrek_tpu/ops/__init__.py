@@ -1,4 +1,4 @@
-"""TPU-native compute kernels (JAX/XLA/Pallas)."""
+"""Device compute kernels (JAX/XLA)."""
 from .consensus import consensus_pos_batch, consensus_lengths_batch
 from .cigar import extract_read_candidates, group_candidates_by_window
 from .audit_step import audit_refine_step, AuditBatch

@@ -1,7 +1,7 @@
 """The fused audit refinement step: evidence → grouping → consensus.
 
 One jitted XLA program per shape bucket: packed reads in, refined
-breakpoints out.  This is the TPU-native equivalent of the reference's
+breakpoints out.  This is the batched device equivalent of the reference's
 whole per-record hot path (audit.c:50-236 + refinement.c), batched over
 many refine tasks ("windows") at once instead of one VCF record per
 thread.

@@ -1,4 +1,4 @@
-"""Vectorized position-clustering consensus (TPU-native).
+"""Vectorized position-clustering consensus (device kernel).
 
 Re-derives the reference's ``consensus_pos`` (refinement.c:41-101) as a
 batched, fixed-shape XLA program, bit-identical to the scalar oracle
@@ -10,9 +10,10 @@ Key re-formulations (SURVEY.md §7, design translation 1):
   cluster counts and means become searchsorted + prefix sums.  The C
   outer sweeps only ever visit at most ``sweep_width`` anchors, so stats
   are computed *at the swept anchors only* ([B, W] work, not [B, K]).
-- The C accumulates cluster totals in uint64 (refinement.c:59).  On TPU
-  int64 is emulated and slow, so the kernel computes the cluster mean
-  int32-only: cluster values lie within ``interval`` of the anchor L, so
+- The C accumulates cluster totals in uint64 (refinement.c:59).  The
+  kernel stays int32-only (64-bit integers are off by default in JAX and
+  cost twice the bytes) and still computes the cluster mean exactly:
+  cluster values lie within ``interval`` of the anchor L, so
   total = count·L − S with S = Σ(L − value) small; S is recovered
   exactly from *wrapping* int32 prefix sums (the true S always fits),
   and candidate = L + floor((count/2 − S)/count) reproduces the C
@@ -21,16 +22,12 @@ Key re-formulations (SURVEY.md §7, design translation 1):
   with a data-dependent early return — an inherently sequential
   record-chain fold (each accepted step must beat BOTH running values,
   so it is not an associative reduction).  The fold runs as a
-  `lax.scan` (`_sweep_scan`) by default on every backend — with the
-  round-5 gather-free cluster stats the sweep is no longer the hot
-  path, and the scan compiles as plain XLA in seconds; the fused
-  Pallas fold (`ops.sweep_pallas`) stays selectable
-  (SVTREK_SWEEP_IMPL=pallas), bit-identical.  The sweep is bounded by
-  ``sweep_width`` steps: the C loop
-  only visits anchors within ``consensus_interval_range`` of pos, which
-  is a contiguous index window in the sorted array; windows with more
-  in-range anchors than sweep_width are flagged for host fallback
-  (exactness is never silently lost).
+  `lax.scan` (`_sweep_scan`).  The sweep is bounded by ``sweep_width``
+  steps: the C loop only visits anchors within
+  ``consensus_interval_range`` of pos, which is a contiguous index
+  window in the sorted array; windows with more in-range anchors than
+  sweep_width are flagged for host fallback (exactness is never
+  silently lost).
 
 Inputs are padded to a static candidate capacity K with INT32_MAX
 sentinels; rows are independent windows (one refine_* task each).
@@ -45,8 +42,7 @@ import jax.numpy as jnp
 from .. import constants as C
 
 # C int distance sentinel (refinement.c:49).  Python int, not jnp.int32 —
-# see ops/cigar.py PAD comment (device-const jit captures poison the
-# runtime's fast dispatch path).
+# see the ops/cigar.py PAD comment.
 _I32_BIG = 0x7FFFFFFF
 
 
@@ -54,10 +50,10 @@ def _row_searchsorted(rows: jnp.ndarray, queries: jnp.ndarray, side: str) -> jnp
     """Rowwise searchsorted, batched over rows AND queries.
 
     An explicit vectorized binary search: ceil(log2(K)) unrolled steps,
-    each one [B, Q] gather + compare.  An order of magnitude cheaper on
-    TPU than jnp.searchsorted's sort method (bitonic sort of width Q+K
-    per row) and, unlike a broadcast-compare count ([B, Q, K] → sum),
-    stays cheap at large K (the grouping capacity can reach 8192).
+    each one [B, Q] gather + compare.  Avoids jnp.searchsorted's sort
+    method (a sort of width Q+K per row) and, unlike a broadcast-compare
+    count ([B, Q, K] → sum), stays cheap at large K (the grouping
+    capacity can reach 8192).
     """
     B, K = rows.shape
     steps = max(1, K.bit_length())  # search space is [0, K]: K+1 values
@@ -89,11 +85,10 @@ def _anchor_stats(locs, n, anchor_idx, loc_a, interval: int):
     Formulation: masked [B, W, K] COMPARE-REDUCES, not binary search —
     sortedness makes "members of anchor i's run" a pure predicate
     (j <= i AND locs[j] >= lo, resp. i <= j < n AND locs[j] <= hi), so
-    count and sum are one fused reduction each.  The previous rowwise
-    binary search paid ~7 take_along_axis gathers per bound; gathers
-    dominated the whole audit step on hardware (round-5 chained-slope
-    profile: 97 of 103 ms), while the O(W·K) broadcast form is plain
-    VPU compare+add work that XLA fuses without materializing.
+    count and sum are one fused reduction each, where a rowwise binary
+    search pays ~7 take_along_axis gathers per bound; the O(W·K)
+    broadcast form is plain compare+add work that XLA fuses into the
+    reduction without materializing the [B, W, K] mask.
     """
     # queries clamp: values near INT32_MAX are padding; their stats are
     # never used (padded anchors are inactive in the sweep).
@@ -104,9 +99,10 @@ def _anchor_stats(locs, n, anchor_idx, loc_a, interval: int):
     a3 = anchor_idx[:, :, None]                            # [B, W, 1]
 
     # Chunk the K axis (static unrolled loop): keeps any materialized
-    # [B, W, chunk] intermediate bounded at the 8192 candidate cap
-    # (XLA-CPU sometimes materializes what TPU fuses), with identical
-    # results — counts and wrap-safe sums are chunkwise additive.
+    # [B, W, chunk] intermediate bounded at the 8192 candidate cap (a
+    # backend that does not fuse the mask into the reduce materializes
+    # it), with identical results — counts and wrap-safe sums are
+    # chunkwise additive.
     CHUNK = 2048
     count_l = sum_l = count_r = sum_r = jnp.int32(0)
     for c0 in range(0, K, CHUNK):
@@ -136,8 +132,9 @@ def _anchor_stats(locs, n, anchor_idx, loc_a, interval: int):
 def _sweep_scan(active, cand_at, count_at, pos, min_count: int, interval: int,
                 allow: jnp.ndarray):
     """One consensus sweep as a batched sequential fold
-    (refinement.c:58-76 / 80-98) — the CPU/semantic-reference path.
-    active/cand_at/count_at: [B, W] already gathered at anchors."""
+    (refinement.c:58-76 / 80-98).  active/cand_at/count_at: [B, W]
+    already gathered at anchors.  Named "sweep_fold" in profiler
+    traces."""
     dist_at = jnp.abs(pos[:, None] - cand_at)
 
     def body(carry, xs):
@@ -170,36 +167,15 @@ def _sweep_scan(active, cand_at, count_at, pos, min_count: int, interval: int,
     # Moderate unroll: each step is a handful of elementwise [B] ops, so
     # the rolled loop is mostly per-iteration overhead; full unroll blows
     # up XLA compile time superlinearly at W>=64.
-    (max_count, best_dist, best_val, returned, ret_val), _ = jax.lax.scan(
-        body, init, xs, unroll=8
-    )
+    with jax.named_scope("sweep_fold"):
+        (max_count, best_dist, best_val, returned, ret_val), _ = \
+            jax.lax.scan(body, init, xs, unroll=8)
     return returned, ret_val, best_val, best_dist
-
-
-# Default sweep impl: the lax.scan fold, on every backend.  When the
-# cluster stats were gather-bound the Pallas fold looked like the hot
-# path; with the round-5 gather-free stats the honest chained-slope
-# numbers on hardware are scan 0.85 ms vs Pallas 0.90 ms per [8192, 64]
-# batch — the sweep is no longer where the time goes, and the scan
-# variant costs a fast XLA compile instead of a minutes-cold remote
-# Mosaic compile (VERDICT r4 weak-6: a sub-second fixture paid 8.5 min
-# of wall on first run).  The Pallas fold stays available
-# (SVTREK_SWEEP_IMPL=pallas / impl="pallas"), bit-identical and tested.
-def _default_impl() -> str:
-    """NOTE: resolved at TRACE time (impl is a static jit arg), so the
-    SVTREK_SWEEP_IMPL override must be set before the first call of a
-    given shape — already-compiled executables keep their impl."""
-    import os
-
-    force = os.environ.get("SVTREK_SWEEP_IMPL", "")
-    if force in ("pallas", "scan"):
-        return force
-    return "scan"
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("min_count", "interval", "range_", "sweep_width", "impl"),
+    static_argnames=("min_count", "interval", "range_", "sweep_width"),
 )
 def consensus_pos_batch(
     locs: jnp.ndarray,
@@ -210,21 +186,17 @@ def consensus_pos_batch(
     interval: int = C.CONSENSUS_INTERVAL,
     range_: int = C.CONSENSUS_INTERVAL_RANGE,
     sweep_width: int = 128,
-    impl: str | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Batched consensus_pos. Bit-identical to refinement.c:41-101 for
     windows without sweep overflow.
 
     locs: [B, K] int32, sorted ascending per row, INT32_MAX padding.
     n:    [B] int32 valid counts;  pos: [B] int32 imprecise positions.
-    impl: "pallas" | "pallas_interpret" | "scan" | None (auto: the
-          scan fold; SVTREK_SWEEP_IMPL overrides, read at trace time).
     Returns (refined [B] int32 with -1 = NA,
              overflow [B] bool — sweep window exceeded; recompute those
              rows on the host for exactness).
     """
     B, K = locs.shape
-    impl = impl or _default_impl()
     n = n.astype(jnp.int32)
     pos = pos.astype(jnp.int32)
     half = C.SV_MIN_LENGTH // 2
@@ -238,8 +210,7 @@ def consensus_pos_batch(
     point_l = jnp.clip(sr[:, 0].astype(jnp.int32) - 1, 0, jnp.maximum(n - 1, 0))
 
     # One [B, W, K] masked reduce replaces the [B, W] take_along_axis
-    # row gathers (gathers are the audit step's hardware bottleneck —
-    # see _anchor_stats).
+    # row gathers (see _anchor_stats).
     def _locs_at(idx):
         out = jnp.int32(0)
         for c0 in range(0, K, 2048):   # chunked like _anchor_stats
@@ -282,24 +253,15 @@ def consensus_pos_batch(
     _, _, cand_r, count_r = _anchor_stats(
         locs, n, idx_r_c, loc_at_r, interval)
 
-    if impl in ("pallas", "pallas_interpret"):
-        from .sweep_pallas import sweep_fold_pallas
-
-        out = sweep_fold_pallas(
-            pos, cand_l, count_l, active_l, cand_r, count_r, active_r,
-            min_count=min_count, interval=interval,
-            interpret=(impl == "pallas_interpret"),
-        )
-    else:
-        allow_all = jnp.ones((B,), bool)
-        ret_l, retv_l, best_l, dist_l = _sweep_scan(
-            active_l, cand_l, count_l, pos, min_count, interval, allow_all)
-        ret_r, retv_r, best_r, dist_r = _sweep_scan(
-            active_r, cand_r, count_r, pos, min_count, interval, ~ret_l)
-        # Final selection (refinement.c:100): left wins only on strictly
-        # smaller distance.
-        final = jnp.where(dist_l < dist_r, best_l, best_r)
-        out = jnp.where(ret_l, retv_l, jnp.where(ret_r, retv_r, final))
+    allow_all = jnp.ones((B,), bool)
+    ret_l, retv_l, best_l, dist_l = _sweep_scan(
+        active_l, cand_l, count_l, pos, min_count, interval, allow_all)
+    ret_r, retv_r, best_r, dist_r = _sweep_scan(
+        active_r, cand_r, count_r, pos, min_count, interval, ~ret_l)
+    # Final selection (refinement.c:100): left wins only on strictly
+    # smaller distance.
+    final = jnp.where(dist_l < dist_r, best_l, best_r)
+    out = jnp.where(ret_l, retv_l, jnp.where(ret_r, retv_r, final))
 
     invalid = (n < min_count) | (n <= 0)
     out = jnp.where(invalid, jnp.int32(-1), out)

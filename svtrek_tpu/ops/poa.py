@@ -26,8 +26,8 @@ the BASELINE.md metric is named "POA DP cells/sec"):
      fixes medoid-biased columns); stop at a fixed point.
 
 The scalar/host implementation below is the semantic anchor; the batched
-TPU DP kernel (wavefront scan over anti-diagonals; see poa_dp_kernel) is
-the performance path benchmarked as "POA DP cells/sec" (BASELINE.md).
+device DP (ops/poa_batch.py: an XLA row scan) is the performance path
+benchmarked as "POA DP cells/sec" (BASELINE.md).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Batched banded edit-distance DP on TPU (the "POA DP cells/sec" path).
+"""Batched banded edit-distance DP (the "POA DP cells/sec" path).
 
 Semantic anchor: the scalar ``banded_align`` in ops/poa.py — this module
 computes the identical per-target-column query bases for a whole batch of
@@ -9,10 +9,10 @@ calls it (SURVEY.md §2.14) and leaves the disc-mode MSA a TODO
 this kernel must reproduce it bit-for-bit (property-tested in
 tests/test_poa_batch.py).
 
-TPU-native formulation (not an anti-diagonal wavefront):
+Formulation (not an anti-diagonal wavefront):
 
 * one ``lax.scan`` step per QUERY ROW (N steps, not N+M) — each step
-  updates the banded row vector of width 2W+1 entirely on the VPU;
+  updates the banded row vector of width 2W+1 with vector ops;
 * the in-row left-gap recurrence ``score[j] = max(score[j-1]+GAP, c[j])``
   is a max-plus prefix scan: with ``g[k] = c[k] - GAP*k`` it becomes an
   exclusive ``lax.cummax`` — O(width) vectorized, no sequential inner
@@ -23,7 +23,9 @@ TPU-native formulation (not an anti-diagonal wavefront):
   int8 pointer tensor, emitting the query base aligned to each target
   column;
 * the whole thing is ``vmap``-ed over the pair batch, so every scan step
-  works on a [B, 2W+1] block — large enough to keep the VPU busy.
+  works on a [B, 2W+1] block.
+
+This one program is the DP on every backend.
 
 Scores are int32; NEG is -2^28 so band-invalid cells stay strictly worse
 than any reachable score without overflowing when gap terms are added.
@@ -143,11 +145,10 @@ def _dp_one(t, m, q, n, band, *, W: int, unroll: int = 1):
 
 
 # Scan-body unroll factor: both scans' per-step work ([B, 2W+1] row
-# updates; a handful of gathers in the traceback) is far below VPU
-# width, so the scans are loop-overhead-bound; unrolling amortizes it
-# with bit-identical semantics (lax.scan unroll is pure loop unrolling;
-# tests/test_poa_batch.py asserts batch == scalar).  bench.py's
-# poa_dp_cells_per_sec stage records the measured effect per round.
+# updates; a handful of gathers in the traceback) is small, so the
+# scans are loop-overhead-bound; unrolling amortizes it with
+# bit-identical semantics (lax.scan unroll is pure loop unrolling;
+# tests/test_poa_batch.py asserts batch == scalar).
 UNROLL = 8
 
 
@@ -155,51 +156,6 @@ UNROLL = 8
 def _dp_cols_batch(tpad, ms, qpad, ns, bands, *, W, unroll=UNROLL):
     return jax.vmap(functools.partial(_dp_one, W=W, unroll=unroll))(
         tpad, ms, qpad, ns, bands)
-
-
-# One-way latch for LOWERING/COMPILE failures only (a backend that
-# cannot build the Mosaic kernel at all); shape-specific failures are
-# memoized per shape bucket instead so one odd batch cannot silently
-# revert every later batch to the slow path (ADVICE r4).  Both are
-# plain attribute writes — atomic under the GIL; a racing duplicate
-# fallback is benign (same result, one extra stderr line).
-_PALLAS_BROKEN = False
-_PALLAS_BAD_SHAPES: set = set()
-
-
-PALLAS_MIN_WORK = 128 * 1024  # B x N below which the XLA scan wins
-
-
-def dp_cols_dispatch(tpad, ms, qpad, ns, bands, *, W):
-    """Production DP entry: the Pallas row-scan kernel on real
-    accelerators (grid steps are hardware loop iterations — the XLA
-    lax.scan pays ~100x roofline per step in loop overhead), the XLA
-    scan on the CPU backend (Pallas interpret mode there is far slower
-    than compiled XLA) and for SMALL batches: a Pallas variant costs a
-    fresh Mosaic kernel compile per shape bucket, which a handful of
-    short inserts (the typical --ins-consensus / disc-cluster batch)
-    never amortizes — the crossover is controlled by PALLAS_MIN_WORK
-    in B x N cells.  Bit-identical either way
-    (tests/test_poa_pallas.py)."""
-    global _PALLAS_BROKEN
-    shape_key = (tpad.shape, qpad.shape, W)
-    if (not _PALLAS_BROKEN and shape_key not in _PALLAS_BAD_SHAPES
-            and jax.default_backend() != "cpu"
-            and tpad.shape[0] * qpad.shape[1] >= PALLAS_MIN_WORK):
-        try:
-            from .poa_pallas import dp_cols_batch_pallas
-
-            return dp_cols_batch_pallas(tpad, ms, qpad, ns, bands, W=W)
-        except Exception as e:
-            import sys
-
-            print(f"[poa] pallas path unavailable ({e.__class__.__name__}:"
-                  f" {e}); using XLA scan", file=sys.stderr)
-            if isinstance(e, (AssertionError, ValueError, TypeError)):
-                _PALLAS_BAD_SHAPES.add(shape_key)  # shape-specific
-            else:  # lowering/compile failure → whole backend unusable
-                _PALLAS_BROKEN = True
-    return _dp_cols_batch(tpad, ms, qpad, ns, bands, W=W)
 
 
 def _pow2(n: int, lo: int) -> int:
@@ -211,13 +167,12 @@ def _pow2(n: int, lo: int) -> int:
 
 def _nbucket(n: int, lo: int = 16) -> int:
     """Length bucket for the padded pair shapes: pow2 up to 512, then
-    quarter-significand steps ({1.0, 1.25, 1.5, 1.75} x 2^k).  The DP
-    and traceback grids run one step per padded query row, so a
+    quarter-significand steps ({1.0, 1.25, 1.5, 1.75} x 2^k).  The XLA
+    DP and traceback scans run one step per padded query row, so a
     1048-base query in a pow2 bucket pays 2048 rows — ~2x dead work;
     the finer steps cap the waste at 25% while keeping the number of
-    compiled shape variants small (remote kernel compiles cost minutes
-    on some backends, so every extra bucket is expensive — below 512
-    rows are cheap and pow2's variant economy wins)."""
+    compiled shape variants small (below 512 rows are cheap and pow2's
+    variant economy wins)."""
     if n <= 512:
         return _pow2(n, lo)
     v = 1024
@@ -297,7 +252,7 @@ def banded_cols_batch(targets, queries, band: int = 64,
         ms[bi] = len(t)
         ns[bi] = len(q)
         bands[bi] = max(band, abs(len(q) - len(t)) + 1)
-    cols_all, ins_all = (np.asarray(x) for x in dp_cols_dispatch(
+    cols_all, ins_all = (np.asarray(x) for x in _dp_cols_batch(
         tpad, ms, qpad, ns, bands, W=W))
     for bi, i in enumerate(dev_idx):
         cols_out[i] = cols_all[bi, : ms[bi]]

@@ -2,7 +2,7 @@
 
 The "banded DP over the POA graph as the inner loop" of the north star
 (BASELINE.json; the reference's abPOA slot, SURVEY.md §2.14), batched
-TPU-style: every active cluster aligns its next member to its graph in
+batched: every active cluster aligns its next member to its graph in
 ONE jitted XLA program per round.
 
 Formulation (dense, not anti-diagonal):

@@ -1,4 +1,4 @@
-"""Windowed INS discovery kernel (TPU-native).
+"""Windowed INS discovery kernel (device).
 
 Makes the reference's dead sliding-window insertion-discovery routine a
 real feature (sliding_window.c:8-97 is compiled into the reference

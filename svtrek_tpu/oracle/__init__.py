@@ -2,7 +2,7 @@
 
 The reference binary cannot be built in this environment (its htslib
 submodule is empty and no system htslib exists), so this package is the
-executable specification the TPU kernels are property-tested against.
+executable specification the device kernels are property-tested against.
 Every function documents the reference file:line it models.  This is a
 fresh implementation of the *semantics*, not a translation of the C code.
 """

@@ -1,7 +1,7 @@
 """Scalar oracle for the breakpoint-refinement semantics.
 
 Models the reference's refinement kernels exactly, including their quirks,
-so vectorized TPU kernels can be verified bit-identical:
+so vectorized device kernels can be verified bit-identical:
 
 - ``consensus_pos``    — position-clustering consensus (refinement.c:41-101)
 - ``consensus_lengths``— global-max length consensus (refinement.c:21-39,

@@ -2,8 +2,9 @@
 
 The reference's only parallelism is single-node record parallelism over
 pthreads (audit.c:269-293; SURVEY.md §2 'parallelism inventory').  The
-TPU-native equivalent shards the *window batch* across a `jax.sharding`
-mesh: each device owns a contiguous block of refine windows and all the
+device equivalent shards the *window batch* across a 1-D `jax.sharding`
+mesh over the local devices (every GPU of a host reaches every other over
+NVLink, so the mesh needs no shape beyond the device list): each device owns a contiguous block of refine windows and all the
 reads packed for those windows — shared-nothing, exactly like the
 reference's per-thread BAM handles, so the only collective is the final
 result gather (which jit inserts automatically from the output sharding).
@@ -32,6 +33,14 @@ def make_mesh(devices=None, axis: str = "data") -> Mesh:
     return Mesh(np.array(devices), (axis,))
 
 
+def device_label() -> str:
+    """What the process computes on, as --verbose and chip_smoke.py
+    print it: platform, device kind and count, as JAX reports them."""
+    d = jax.devices()
+    return (f"platform={d[0].platform} device_kind={d[0].device_kind} "
+            f"devices={len(d)}")
+
+
 _DISTRIBUTED_INITIALIZED = False
 
 
@@ -40,7 +49,7 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> int:
     """jax.distributed bootstrap — the multi-host communication backend
     (SURVEY.md §5 'distributed backend'; replaces the reference's
-    single-node pthread model, audit.c:269-293, across TPU hosts).
+    single-node pthread model, audit.c:269-293, across hosts).
 
     Arguments default from the environment so a launcher can export
     SVTREK_COORDINATOR=host:port, SVTREK_NUM_PROCS, SVTREK_PROC_ID and
@@ -134,8 +143,6 @@ def sharded_audit_step(mesh: Mesh, *, num_windows: int, K: int,
         mesh=mesh,
         in_specs=(spec,) * 9,
         out_specs=(spec, spec, spec),
-        # the Pallas sweep kernel can't annotate vma on its out_shapes
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -148,7 +155,7 @@ def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int, O: int,
     """Multi-chip step for the flat (CSR) device-extract layout
     (ops.audit_step.AuditBatchCSR): each shard receives its own block of
     the flat op stream and scatters it into the padded [N_loc, O]
-    matrices in its own HBM — the host link still carries only the real
+    matrices in its own device memory — the host link still carries only the real
     CIGAR ops (~half the padded bytes), now per shard (VERDICT r2 weak
     7: the CSR step is worth keeping, so it shards).
 
@@ -182,7 +189,6 @@ def sharded_audit_step_csr(mesh: Mesh, *, num_windows: int, K: int, O: int,
         local, mesh=mesh,
         in_specs=(spec,) * 9,
         out_specs=(spec, spec, spec),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -217,7 +223,6 @@ def sharded_consensus_step(mesh: Mesh, *, num_windows: int,
         local, mesh=mesh,
         in_specs=(spec, spec, spec),
         out_specs=(spec, spec),
-        check_vma=False,
     )
     return jax.jit(fn)
 

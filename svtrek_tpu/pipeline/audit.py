@@ -1,6 +1,6 @@
 """`audt` mode driver: VCF + BAM → refined breakpoint records.
 
-TPU-native re-design of the reference's process_vcf/thread_func pipeline
+Batched re-design of the reference's process_vcf/thread_func pipeline
 (audit.c:50-357): instead of a pthread pool pulling VCF lines from a
 bounded queue, the host parses + packs fixed-shape window batches and one
 jitted XLA program per bucket refines a whole batch at once; results are
@@ -18,7 +18,8 @@ the double-buffered input pipeline of SURVEY.md §2's template mapping.
 With more than one accelerator visible (or cfg.data_shards set), each
 batch is packed shard-blockwise and refined by the shard_map'd multi-chip
 step (parallel.mesh.sharded_audit_step) — record-granular data
-parallelism over the mesh, the reference's pthread model mapped to ICI.
+parallelism over the mesh, the reference's pthread model mapped to the
+devices of one host.
 """
 from __future__ import annotations
 
@@ -96,13 +97,15 @@ class AuditStats:
     data_shards: int = 1
 
     def report(self, err) -> None:
+        from ..parallel.mesh import device_label
+
         print(
             f"[VERBOSE] records={self.records} windows={self.windows} "
             f"reads={self.reads} batches={self.batches} "
             f"oracle_fallbacks={self.oracle_windows} "
             f"(kovf={self.fallback_kovf} sweep={self.fallback_sweep} "
             f"long_ops={self.fallback_long} device={self.fallback_device}) "
-            f"data_shards={self.data_shards}",
+            f"data_shards={self.data_shards} {device_label()}",
             file=err,
         )
         print(
@@ -700,8 +703,7 @@ def run_audit(cfg: AudtConfig, out=None, err=None,
 
     # jax.profiler trace of the batch loop (SURVEY.md §5 'tracing':
     # the reference has none; --verbose + this make it real).
-    trace_dir = getattr(cfg, "trace_dir", "") or \
-        os.environ.get("SVTREK_TPU_TRACE_DIR", "")
+    trace_dir = getattr(cfg, "trace_dir", "")
     trace_ctx = None
     if trace_dir:
         import jax.profiler

@@ -41,7 +41,7 @@ def test_cli_audt(audt_fixture, capsys, monkeypatch):
 
 
 def test_cli_audt_flag_roundtrip(audt_fixture, capsys):
-    """Every [TPU] flag reaches the pipeline without error and the
+    """Every [ext] flag reaches the pipeline without error and the
     device-extract path gives the same records."""
     d, bam, vcf = audt_fixture
     rc = cli.main(["audt", "-b", bam, "-v", vcf,

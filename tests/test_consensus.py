@@ -114,10 +114,10 @@ def test_consensus_early_return_tiebreak():
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_pallas_sweep_matches_scan(seed):
-    """The fused Pallas sweep kernel (interpret mode on CPU) must agree
-    bit-for-bit with the lax.scan reference fold — same inputs, same
-    refined positions (ops/sweep_pallas.py)."""
+def test_sweep_fold_mixed_clusters_matches_oracle(seed):
+    """The lax.scan sweep fold over mixed tight/spread clusters: refined
+    positions equal the scalar oracle's wherever the sweep window did
+    not overflow (overflowed rows are recomputed on the host)."""
     rng = np.random.default_rng(300 + seed)
     cases = []
     for _ in range(40):
@@ -130,10 +130,10 @@ def test_pallas_sweep_matches_scan(seed):
         ]
         cases.append((vals, center + int(rng.integers(-100, 100))))
     locs, n, pos = _pack(cases, 64)
-    got_scan, ovf_s = consensus_pos_batch(locs, n, pos, impl="scan")
-    got_pl, ovf_p = consensus_pos_batch(locs, n, pos, impl="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(got_scan), np.asarray(got_pl))
-    np.testing.assert_array_equal(np.asarray(ovf_s), np.asarray(ovf_p))
+    got, ovf = (np.asarray(x) for x in consensus_pos_batch(locs, n, pos))
+    for i, (vals, p) in enumerate(cases):
+        if not ovf[i]:
+            assert got[i] == consensus_pos(vals, p), i
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -149,21 +149,6 @@ def test_consensus_lengths_matches_oracle(seed):
     got = np.asarray(consensus_lengths_batch(locs, n))
     want = np.array([consensus_lengths(v) for v, _ in cases], np.int32)
     np.testing.assert_array_equal(got, want)
-
-
-def test_default_impl(monkeypatch):
-    """Auto sweep impl is the scan fold on every backend (the round-5
-    gather-free stats made the Pallas fold moot, and the scan variant
-    never pays a minutes-cold remote Mosaic compile — VERDICT r4
-    weak-6); the env override still selects the Pallas fold."""
-    from svtrek_tpu.ops import consensus as cns
-
-    monkeypatch.delenv("SVTREK_SWEEP_IMPL", raising=False)
-    assert cns._default_impl() == "scan"
-    monkeypatch.setenv("SVTREK_SWEEP_IMPL", "pallas")
-    assert cns._default_impl() == "pallas"
-    monkeypatch.setenv("SVTREK_SWEEP_IMPL", "scan")
-    assert cns._default_impl() == "scan"
 
 
 def test_consensus_large_k_chunked():

@@ -8,7 +8,7 @@ result row for row.
 
 This is the multi-host communication backend of SURVEY.md §5 — the
 replacement for the reference's single-node pthread parallelism
-(audit.c:269-293) across TPU hosts: same CLI on every host with
+(audit.c:269-293) across hosts: same CLI on every host with
 SVTREK_COORDINATOR/SVTREK_NUM_PROCS/SVTREK_PROC_ID exported.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Property tests: the batched TPU DP kernel (ops/poa_batch.py) must
+"""Property tests: the batched device DP (ops/poa_batch.py) must
 reproduce the scalar semantic anchor (ops/poa.py) bit-for-bit."""
 import numpy as np
 import pytest

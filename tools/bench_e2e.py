@@ -22,14 +22,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-
 from svtrek_tpu.constants import CIGAR_D, CIGAR_I, CIGAR_M, CIGAR_S  # noqa: E402
 from svtrek_tpu.io.bam import BamRecord, BamWriter  # noqa: E402
 
@@ -137,9 +129,11 @@ def main():
                     help="reuse fixture dir /tmp/svtrek_e2e_fixture")
     args = ap.parse_args()
 
+    from svtrek_tpu.compile_cache import enable_compile_cache
     from svtrek_tpu.config import AudtConfig
     from svtrek_tpu.pipeline.audit import run_audit
 
+    enable_compile_cache()
     if args.keep:
         tmpdir = "/tmp/svtrek_e2e_fixture"
         os.makedirs(tmpdir, exist_ok=True)

@@ -6,12 +6,12 @@ JAX_PLATFORMS=cpu and xla_force_host_platform_device_count=8 (the same
 virtual-device mesh the multi-chip dryrun uses): fixed total work, mesh
 sizes 1/2/4/8, best-of-3 timing windows.  Prints one JSON line.
 
-Caveat printed with the result: this host has 2 physical cores, so
-virtual-device scaling saturates at ~2x wall-clock no matter how clean
-the sharding is; the curve demonstrates the shard_map step's *overhead*
+Caveat printed with the result: virtual-device scaling saturates at
+the host's physical core count no matter how clean the sharding is;
+the curve demonstrates the shard_map step's *overhead*
 behavior (a flat efficiency collapse would indicate sharding overhead;
-a plateau at the core count is the hardware ceiling).  Real >2x scaling
-requires real chips (BASELINE.md metric 4's 2-host config).
+a plateau at the core count is the hardware ceiling).  Device scaling
+requires real cards (BASELINE.md metric 4's 2-host config).
 """
 from __future__ import annotations
 
@@ -22,12 +22,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from svtrek_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 B = 4096           # total windows (fixed work, divisible by 8)
 ITERS = 10
